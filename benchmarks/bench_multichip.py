@@ -1,163 +1,83 @@
-"""Multi-device scaling check for the sharded SIR particle filter.
+"""Multi-card scaling of the sharded SIR particle filter.
 
-Runs on the HOST CPU with virtual devices (the same harness the test suite
-and the driver's ``dryrun_multichip`` use), so the numbers demonstrate that
-the ``('particles',)``-mesh shard_map path compiles, that its collectives
-(psum log-normalizer/ESS, all_gather or neighbor-exchange resampling
-ancestry) execute, and how wall time behaves as the mesh widens — NOT TPU
-performance (single-chip TPU numbers live in bench.py / results.json; real
-multi-chip hardware is not available in this environment).
+Runs the generic ``ParticleFilter`` on the SV model (T = 100) with the
+particle axis sharded over 1, 2 and 4 GPUs (``parallel.make_sharded_pf_run``)
+at a fixed global cloud (strong scaling), in the all_gather resample mode on
+every mesh width and the memory-bounded neighbor exchange on the widest.
+Each run is timed with ``jax.block_until_ready`` after a warm-up of the same
+shape. Needs GPUs: exits non-zero elsewhere.
 
-Two filter families run:
-- the generic vmap ``ParticleFilter`` (N=2^17, all_gather and neighbor
-  resample modes), and
-- the FLAGSHIP fused Pallas path (``parallel/fused_sharded.py``) in Pallas
-  interpret mode (the Mosaic kernel itself needs a TPU; interpret mode
-  executes the identical shard_map/collective/resample structure), at a
-  smaller N=2^15 since interpretation multiplies kernel cost.
-
-Usage:  python benchmarks/bench_multichip.py
+Usage:  python benchmarks/bench_multichip.py [--log2-n 24]
 Prints one JSON line per configuration.
 """
 
+import argparse
 import json
 import os
 import sys
-import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-os.environ["JAX_PLATFORMS"] = "cpu"
-flags = os.environ.get("XLA_FLAGS", "")
-if "xla_force_host_platform_device_count" not in flags:
-    os.environ["XLA_FLAGS"] = (
-        flags + " --xla_force_host_platform_device_count=8"
-    ).strip()
-
 import jax  # noqa: E402
-
-jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp  # noqa: E402
-import numpy as np  # noqa: E402
-from jax.sharding import Mesh  # noqa: E402
 
-from particle_filters_tpu.models import ParticleFilter  # noqa: E402
-from particle_filters_tpu.parallel import (  # noqa: E402
+from bench import ALPHA, SIGMA, make_sv_filter, sv_prior  # noqa: E402
+from particle_filters_jax.parallel import (  # noqa: E402
+    make_mesh,
     make_sharded_pf_run,
     shard_pf_state,
 )
-from particle_filters_tpu.simulators import simulate_sv_1d  # noqa: E402
+from particle_filters_jax.simulators import simulate_sv_1d  # noqa: E402
+from particle_filters_jax.utils.device import (  # noqa: E402
+    device_summary,
+    enable_compile_cache,
+    query_cards,
+    require_gpu,
+)
+from particle_filters_jax.utils.timing import time_best  # noqa: E402
 
-ALPHA, SIGMA = 0.95, 0.2
-N_GLOBAL = 1 << 17  # strong scaling: global cloud fixed, shards shrink
 T = 100
 
 
-def make_pf(distributed_resample="all_gather", radius=2):
-    return ParticleFilter(
-        lambda x, u: ALPHA * x,
-        None,
-        jnp.array([[SIGMA**2]], jnp.float32),
-        None,
-        Np=N_GLOBAL,
-        resample_thresh=0.5,
-        obs_loglik=lambda x, z: -0.5 * (z[0] ** 2 / jnp.exp(x[0]) + x[0]),
-        axis_name="particles",
-        distributed_resample=distributed_resample,
-        neighbor_radius=radius,
-    )
-
-
-def timed(run, key, st, zs, reps=3):
-    out = run(key, st, zs)
-    jax.block_until_ready(out)
-    best = np.inf
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        out = run(key, st, zs)
-        jax.block_until_ready(out)
-        best = min(best, time.perf_counter() - t0)
-    return best, out
-
-
 def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--log2-n", type=int, default=24)
+    args = ap.parse_args()
+    require_gpu()
+    enable_compile_cache()
+    card = query_cards()[0]
+    n_global = 1 << args.log2_n
     sv = simulate_sv_1d(T, ALPHA, SIGMA, 1.0, seed=42)
-    zs = sv.Y[:, None]
-    key = jax.random.PRNGKey(0)
     devices = jax.devices()
-
-    for n_dev, mode in [(1, "all_gather"), (2, "all_gather"),
-                        (4, "all_gather"), (8, "all_gather"),
-                        (8, "neighbor")]:
-        pf = make_pf(mode)
-        mesh = Mesh(np.array(devices[:n_dev]), ("particles",))
-        st0 = pf.initialize(
-            key, jnp.zeros(1, jnp.float32),
-            jnp.array([[SIGMA**2 / (1 - ALPHA**2)]], jnp.float32),
+    widths = [n for n in (1, 2, 4) if n <= len(devices)]
+    configs = [(n, "all_gather") for n in widths] + [(widths[-1], "neighbor")]
+    for n_dev, mode in configs:
+        mesh = make_mesh(n_batch=1, n_particles=n_dev, devices=devices[:n_dev])
+        pf = make_sv_filter(n_global, axis_name="particles",
+                            distributed_resample=mode)
+        st0 = shard_pf_state(pf.initialize(jax.random.PRNGKey(0),
+                                           *sv_prior()), mesh)
+        zs = jnp.asarray(sv.Y[:, None], jnp.float32)
+        best, first, (_, hist) = time_best(
+            make_sharded_pf_run(pf, mesh), jax.random.PRNGKey(1), st0, zs,
+            reps=3,
         )
-        st0 = shard_pf_state(st0, mesh)
-        run = make_sharded_pf_run(pf, mesh)
-        best, (final, hist) = timed(run, key, st0, zs)
         rmse = float(jnp.sqrt(jnp.mean((hist["mean"][:, 0] - sv.X) ** 2)))
         print(json.dumps({
-            "path": "generic",
             "devices": n_dev,
             "resample": mode,
-            "n_global": N_GLOBAL,
-            "wall_s": round(best, 4),
-            "sv_rmse": round(rmse, 4),
-            "resample_frac": round(float(jnp.mean(hist["resampled"])), 3),
+            "n_global": n_global,
+            "T": T,
+            "wall_s": best,
+            "first_call_s": first,
+            "ms_per_step": best / T * 1e3,
+            "sv_rmse": rmse,
+            "resample_frac": float(jnp.mean(hist["resampled"])),
             "exchange_ok_all": bool(jnp.all(hist["exchange_ok"])),
-        }))
-
-    # FLAGSHIP fused Pallas path over the same mesh widths (interpret
-    # mode off-TPU; the structure — shard_map, per-(shard, block) PRNG,
-    # pmax/psum partial combining, cross-shard blocked resample — is
-    # exactly what runs on real chips).
-    from jax.experimental.pallas import tpu as pltpu
-
-    from particle_filters_tpu.parallel import (
-        make_sharded_fused_init,
-        make_sharded_fused_pf,
-        make_sharded_fused_run,
-    )
-
-    n_fused = 1 << 15
-    for n_dev, mode in [(1, "all_gather"), (2, "all_gather"),
-                        (4, "all_gather"), (8, "all_gather"),
-                        (8, "neighbor")]:
-        mesh = Mesh(
-            np.asarray(devices[:n_dev]).reshape(1, n_dev),
-            ("batch", "particles"),
-        )
-        with pltpu.force_tpu_interpret_mode():
-            fpf = make_sharded_fused_pf(
-                lambda x: ALPHA * x,
-                lambda x, z: -0.5 * (z[0] ** 2 / jnp.exp(x) + x),
-                Q=np.array([[SIGMA**2]]),
-                Np=n_fused,
-                mesh=mesh,
-                resample_thresh=0.5,
-                distributed_resample=mode,
-                neighbor_radius=2,
-            )
-            st0 = make_sharded_fused_init(fpf, mesh)(
-                key, jnp.zeros(1),
-                jnp.array([[SIGMA**2 / (1 - ALPHA**2)]]),
-            )
-            run = make_sharded_fused_run(fpf, mesh)
-            best, (final, hist) = timed(run, key, st0, zs)
-        rmse = float(jnp.sqrt(jnp.mean((hist["mean"][:, 0] - sv.X) ** 2)))
-        print(json.dumps({
-            "path": "fused",
-            "devices": n_dev,
-            "resample": mode,
-            "n_global": n_fused,
-            "wall_s": round(best, 4),
-            "sv_rmse": round(rmse, 4),
-            "resample_frac": round(float(jnp.mean(hist["resampled"])), 3),
-            "exchange_ok_all": bool(jnp.all(hist["exchange_ok"])),
-        }))
+            "device": device_summary(),
+            "card": card[0],
+            "power_limit": card[1],
+        }), flush=True)
 
 
 if __name__ == "__main__":

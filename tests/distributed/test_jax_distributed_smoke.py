@@ -71,12 +71,12 @@ def _single_process_reference():
     import jax.numpy as jnp
     from jax.sharding import Mesh, PartitionSpec as P  # noqa: F401
 
-    from particle_filters_tpu.models import ParticleFilter
-    from particle_filters_tpu.parallel.sharded import (
+    from particle_filters_jax.models import ParticleFilter
+    from particle_filters_jax.parallel.sharded import (
         make_sharded_pf_run,
         shard_pf_state,
     )
-    from particle_filters_tpu.simulators import simulate_sv_1d
+    from particle_filters_jax.simulators import simulate_sv_1d
 
     alpha, sigma = 0.9, 0.2
     sv = simulate_sv_1d(100, alpha, sigma, 1.0, seed=42)

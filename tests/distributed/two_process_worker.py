@@ -38,13 +38,13 @@ def main():
     import jax.numpy as jnp
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-    from particle_filters_tpu.models import ParticleFilter
-    from particle_filters_tpu.models.particle_filter import PFState
-    from particle_filters_tpu.parallel.sharded import (
+    from particle_filters_jax.models import ParticleFilter
+    from particle_filters_jax.models.particle_filter import PFState
+    from particle_filters_jax.parallel.sharded import (
         make_sharded_pf_run,
         shard_pf_state,  # noqa: F401  (single-process analog)
     )
-    from particle_filters_tpu.simulators import simulate_sv_1d
+    from particle_filters_jax.simulators import simulate_sv_1d
 
     devices = jax.devices()
     assert len(devices) == 4 * args.num_processes, (

@@ -16,8 +16,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from particle_filters_tpu.models.dpf import DPF_OT
-from particle_filters_tpu.simulators import simulate_lgssm
+from particle_filters_jax.models.dpf import DPF_OT
+from particle_filters_jax.simulators import simulate_lgssm
 
 pytestmark = pytest.mark.integration
 

@@ -13,7 +13,7 @@ import numpy as np
 import optax
 import pytest
 
-from particle_filters_tpu.models.dpf import DifferentiableParticleFilterRNN
+from particle_filters_jax.models.dpf import DifferentiableParticleFilterRNN
 
 pytestmark = [pytest.mark.integration, pytest.mark.slow]
 

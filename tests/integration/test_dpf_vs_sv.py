@@ -13,12 +13,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from particle_filters_tpu.models.dpf import (
+from particle_filters_jax.models.dpf import (
     DPF_OT,
     DifferentiableParticleFilter,
     DifferentiableParticleFilterRNN,
 )
-from particle_filters_tpu.simulators import simulate_sv_1d
+from particle_filters_jax.simulators import simulate_sv_1d
 
 pytestmark = pytest.mark.integration
 

@@ -13,7 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from particle_filters_tpu.models.extended_kalman_filter import (
+from particle_filters_jax.models.extended_kalman_filter import (
     ExtendedKalmanFilter,
     make_ekf_state,
     numerical_jacobian_g,

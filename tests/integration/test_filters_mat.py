@@ -11,8 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from particle_filters_tpu.core.linalg import mvn_logpdf_chol
-from particle_filters_tpu.models import (
+from particle_filters_jax.core.linalg import mvn_logpdf_chol
+from particle_filters_jax.models import (
     EDHConfig,
     EDHFlowPF,
     ExtendedKalmanFilter,
@@ -23,7 +23,7 @@ from particle_filters_tpu.models import (
     make_ekf_state,
     make_ukf_state,
 )
-from particle_filters_tpu.simulators import (
+from particle_filters_jax.simulators import (
     MATDynamicsConfig,
     MATScenarioConfig,
     acoustic_measurement_model,
@@ -32,7 +32,7 @@ from particle_filters_tpu.simulators import (
     build_cv_transition,
     simulate_acoustic_dataset,
 )
-from particle_filters_tpu.utils.diagnostics import omat
+from particle_filters_jax.utils.diagnostics import omat
 
 pytestmark = pytest.mark.integration
 

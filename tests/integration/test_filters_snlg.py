@@ -10,8 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from particle_filters_tpu.core.linalg import mvn_logpdf_chol
-from particle_filters_tpu.models import (
+from particle_filters_jax.core.linalg import mvn_logpdf_chol
+from particle_filters_jax.models import (
     EDHConfig,
     EDHFlowPF,
     ExtendedKalmanFilter,
@@ -20,7 +20,7 @@ from particle_filters_tpu.models import (
     kalman_filter_general,
     make_ukf_state,
 )
-from particle_filters_tpu.simulators import SNLGConfig, simulate_snlg_dataset
+from particle_filters_jax.simulators import SNLGConfig, simulate_snlg_dataset
 
 pytestmark = pytest.mark.integration
 
@@ -115,7 +115,7 @@ class TestLEDHOnSNLG:
     (``test_filters_snlg_simulator.py``; BASELINE LEDH-200 MSE 0.6512)."""
 
     def test_ledh_in_kf_ballpark(self, key, snlg):
-        from particle_filters_tpu.models import LEDHConfig, LEDHFlowPF
+        from particle_filters_jax.models import LEDHConfig, LEDHFlowPF
 
         ds, cfg = snlg
         I = jnp.eye(D)

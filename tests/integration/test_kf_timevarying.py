@@ -10,7 +10,7 @@ arrays consumed by one ``lax.scan`` (``kalman_filter_general``).
 import numpy as np
 import pytest
 
-from particle_filters_tpu.models.kalman_filter import kalman_filter_general
+from particle_filters_jax.models.kalman_filter import kalman_filter_general
 
 
 @pytest.mark.integration

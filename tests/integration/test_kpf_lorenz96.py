@@ -10,9 +10,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from particle_filters_tpu.models import KPFConfig, KernelParticleFilter, Model
-from particle_filters_tpu.simulators import l96_integrate, simulate_lorenz96
-from particle_filters_tpu.simulators.lorenz96 import compute_ensemble_spread, compute_rmse
+from particle_filters_jax.models import KPFConfig, KernelParticleFilter, Model
+from particle_filters_jax.simulators import l96_integrate, simulate_lorenz96
+from particle_filters_jax.simulators.lorenz96 import compute_ensemble_spread, compute_rmse
 
 pytestmark = pytest.mark.integration
 

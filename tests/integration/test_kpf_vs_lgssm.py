@@ -13,12 +13,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from particle_filters_tpu.models.kernel_particle_filter import (
+from particle_filters_jax.models.kernel_particle_filter import (
     KernelParticleFilter,
     KPFConfig,
     Model,
 )
-from particle_filters_tpu.simulators import simulate_lgssm
+from particle_filters_jax.simulators import simulate_lgssm
 
 A = np.array([[0.9, 0.2], [0.0, 0.7]], np.float32)
 B = np.diag([np.sqrt(0.05), np.sqrt(0.02)]).astype(np.float32)

@@ -16,7 +16,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from particle_filters_tpu.models.unscented_kalman_filter import (
+from particle_filters_jax.models.unscented_kalman_filter import (
     UnscentedKalmanFilter,
     make_ukf_state,
 )

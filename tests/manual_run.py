@@ -40,7 +40,6 @@ PHASES = {
     ],
     "pf": [
         "tests/unit/test_particle_filter.py",
-        "tests/unit/test_fused_pf.py",
     ],
     "flows": [
         "tests/unit/test_flow_filters.py",

@@ -47,7 +47,7 @@ class TestKFParity:
         """Same Y → same filtered means/covs/loglik (f32 vs f64 tolerance)."""
         from models.kalman_filter import kalman_filter_general as ref_kf
 
-        from particle_filters_tpu.models import kalman_filter_general
+        from particle_filters_jax.models import kalman_filter_general
 
         d = ref_lgssm_data
         Q = d["B"] @ d["B"].T
@@ -73,7 +73,7 @@ class TestKFParity:
     def test_joseph_form_matches(self, ref_lgssm_data):
         from models.kalman_filter import kalman_filter_general as ref_kf
 
-        from particle_filters_tpu.models import kalman_filter_general
+        from particle_filters_jax.models import kalman_filter_general
 
         d = ref_lgssm_data
         Q = d["B"] @ d["B"].T
@@ -101,7 +101,7 @@ class TestEKFUKFParity:
             ExtendedKalmanFilter as RefEKF,
         )
 
-        from particle_filters_tpu.models import ExtendedKalmanFilter, make_ekf_state
+        from particle_filters_jax.models import ExtendedKalmanFilter, make_ekf_state
 
         Q = 0.05 * np.eye(2)
         R = 0.1 * np.eye(2)
@@ -141,7 +141,7 @@ class TestEKFUKFParity:
             UnscentedKalmanFilter as RefUKF,
         )
 
-        from particle_filters_tpu.models import UnscentedKalmanFilter, make_ukf_state
+        from particle_filters_jax.models import UnscentedKalmanFilter, make_ukf_state
 
         Q = 0.05 * np.eye(2)
         R = 0.1 * np.eye(2)
@@ -175,7 +175,7 @@ class TestSPFParity:
             solve_beta_star_bisection as ref_solve,
         )
 
-        from particle_filters_tpu.models import solve_beta_star_bisection
+        from particle_filters_jax.models import solve_beta_star_bisection
 
         M0 = np.array([[1.0, 0.2], [0.2, 2.0]])
         Mh = np.array([[4.0, 0.0], [0.0, 0.5]])
@@ -190,7 +190,7 @@ class TestSPFParity:
             kappa2_and_derivative as ref_k2,
         )
 
-        from particle_filters_tpu.models import kappa2_and_derivative
+        from particle_filters_jax.models import kappa2_and_derivative
 
         M = np.array([[2.0, 0.3], [0.3, 1.0]])
         dM = np.array([[1.0, 0.0], [0.0, 3.0]])
@@ -206,7 +206,7 @@ class TestSPFParity:
             LinearGaussianBayes as RefLGB,
         )
 
-        from particle_filters_tpu.models import LinearGaussianBayes
+        from particle_filters_jax.models import LinearGaussianBayes
 
         m0 = np.array([1.0, -2.0])
         P0 = np.array([[2.0, 0.5], [0.5, 1.0]])
@@ -228,7 +228,7 @@ class TestKernelParity:
     def test_gaspari_cohn_matches(self):
         from models.kernel_particle_filter import gaspari_cohn as ref_gc
 
-        from particle_filters_tpu.models import gaspari_cohn
+        from particle_filters_jax.models import gaspari_cohn
 
         r = np.linspace(0, 2.5, 101)
         np.testing.assert_allclose(
@@ -240,7 +240,7 @@ class TestKernelParity:
             build_localization_matrix as ref_loc,
         )
 
-        from particle_filters_tpu.models import build_localization_matrix
+        from particle_filters_jax.models import build_localization_matrix
 
         np.testing.assert_allclose(
             np.asarray(build_localization_matrix(12, 3.0)),
@@ -253,7 +253,7 @@ class TestKernelParity:
             matrix_kernel_and_divergence as ref_mk,
         )
 
-        from particle_filters_tpu.models.kernel_particle_filter import (
+        from particle_filters_jax.models.kernel_particle_filter import (
             matrix_kernel_and_divergence,
         )
 
@@ -278,7 +278,7 @@ class TestSimulatorParity:
             make_sensor_grid as ref_grid,
         )
 
-        from particle_filters_tpu.simulators import (
+        from particle_filters_jax.simulators import (
             article_initial_states,
             article_process_noise_cov,
             build_cv_transition,
@@ -304,7 +304,7 @@ class TestSimulatorParity:
             make_sensor_grid as ref_grid,
         )
 
-        from particle_filters_tpu.simulators import acoustic_measurement_model
+        from particle_filters_jax.simulators import acoustic_measurement_model
 
         rng = np.random.default_rng(5)
         P = rng.uniform(0, 40, size=(6, 4, 2))
@@ -325,7 +325,7 @@ class TestSimulatorParity:
             se_kernel_cov as ref_kernel,
         )
 
-        from particle_filters_tpu.simulators import make_grid_coords, se_kernel_cov
+        from particle_filters_jax.simulators import make_grid_coords, se_kernel_cov
 
         c_o = np.asarray(make_grid_coords(16))
         c_r = ref_coords(16)
@@ -339,7 +339,7 @@ class TestSimulatorParity:
     def test_l96_rhs_matches(self):
         from simulator.simulator_Lorenz_96 import l96_rhs as ref_rhs
 
-        from particle_filters_tpu.simulators import l96_rhs
+        from particle_filters_jax.simulators import l96_rhs
 
         x = np.random.default_rng(7).normal(size=40)
         np.testing.assert_allclose(
@@ -353,7 +353,7 @@ class TestSimulatorParity:
         over a short chaotic window."""
         from simulator.simulator_Lorenz_96 import l96_integrate as ref_int
 
-        from particle_filters_tpu.simulators import l96_integrate
+        from particle_filters_jax.simulators import l96_integrate
 
         x0 = np.full(40, 8.0)
         x0[0] = 9.0

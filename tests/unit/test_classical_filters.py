@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from particle_filters_tpu.models import (
+from particle_filters_jax.models import (
     ExtendedKalmanFilter,
     UnscentedKalmanFilter,
     kalman_filter_general,

@@ -12,17 +12,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from particle_filters_tpu.models import (
+from particle_filters_jax.models import (
     ExtendedKalmanFilter,
     UnscentedKalmanFilter,
     kalman_filter_general,
 )
-from particle_filters_tpu.models.extended_kalman_filter import (
+from particle_filters_jax.models.extended_kalman_filter import (
     make_ekf_state,
     numerical_jacobian_g,
     numerical_jacobian_h,
 )
-from particle_filters_tpu.models.unscented_kalman_filter import make_ukf_state
+from particle_filters_jax.models.unscented_kalman_filter import make_ukf_state
 
 
 def _linear_ekf(small_system):

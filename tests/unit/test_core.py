@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from particle_filters_tpu.core.weights import (
+from particle_filters_jax.core.weights import (
     effective_sample_size,
     ess_from_logw,
     log_normalize,
@@ -13,7 +13,7 @@ from particle_filters_tpu.core.weights import (
     weight_entropy,
     weighted_mean_cov,
 )
-from particle_filters_tpu.core.linalg import (
+from particle_filters_jax.core.linalg import (
     chol_with_jitter,
     chol_solve,
     mvn_logpdf,
@@ -140,11 +140,10 @@ class TestLinalg:
 
 
 class TestUnrolledBlockedSolvers:
-    """The TPU fast path for 32 ≤ n ≤ 160: unrolled blocked Cholesky and
-    triangular substitution (``core/linalg.py``). XLA's own cholesky /
-    triangular_solve lower to serial While loops on TPU; these static
-    unrolled forms replace them in the filters (UKF/EKF/KF gains, the
-    LEDH per-particle flow). n = 144 is the skew-t sensor-network dim the
+    """The unrolled blocked Cholesky and triangular substitution of
+    ``core/linalg.py`` for 32 ≤ n ≤ 160: static unrolled forms that stand in
+    for XLA's looped cholesky / triangular_solve in the filters (UKF/EKF/KF
+    gains, the LEDH per-particle flow). n = 144 is the skew-t sensor-network dim the
     round-4 cap of 128 silently excluded."""
 
     # spans: below the unroll window (plain jnp path), the window edges,
@@ -153,7 +152,7 @@ class TestUnrolledBlockedSolvers:
 
     @pytest.mark.parametrize("n", NS)
     def test_chol_nojitter_matches_numpy(self, n):
-        from particle_filters_tpu.core.linalg import chol_nojitter
+        from particle_filters_jax.core.linalg import chol_nojitter
 
         rng = np.random.default_rng(n)
         a = rng.standard_normal((n, n))
@@ -166,7 +165,7 @@ class TestUnrolledBlockedSolvers:
 
     @pytest.mark.parametrize("n", NS)
     def test_tri_solve_lower_and_transpose(self, n):
-        from particle_filters_tpu.core.linalg import (
+        from particle_filters_jax.core.linalg import (
             tri_solve_lower,
             tri_solve_lower_t,
         )
@@ -185,7 +184,7 @@ class TestUnrolledBlockedSolvers:
         np.testing.assert_allclose(L @ v, B[:, 0], rtol=1e-3, atol=1e-3)
 
     def test_chol_solve_batched_spd(self):
-        from particle_filters_tpu.core.linalg import chol_nojitter, chol_solve
+        from particle_filters_jax.core.linalg import chol_nojitter, chol_solve
 
         rng = np.random.default_rng(3)
         a = rng.standard_normal((4, 144, 144))
@@ -200,7 +199,7 @@ class TestUnrolledBlockedSolvers:
         )
 
     def test_chol_nojitter_nan_on_indefinite(self):
-        from particle_filters_tpu.core.linalg import chol_nojitter
+        from particle_filters_jax.core.linalg import chol_nojitter
 
         # failure contract matches jnp.linalg.cholesky: non-SPD -> NaNs
         a = jnp.diag(jnp.array([1.0] * 143 + [-1.0], jnp.float32))
@@ -214,7 +213,7 @@ class TestUnrolledBlockedSolvers:
         never (graph/compile-size cap). Triangular solves gate on the
         TRIANGULAR dim with the RHS width folded into the amortization
         product — a (100, 144, 1) vector solve must unroll."""
-        from particle_filters_tpu.core.linalg import _use_unrolled
+        from particle_filters_jax.core.linalg import _use_unrolled
 
         # window membership is on the factor dim
         assert _use_unrolled((144, 144))
@@ -234,7 +233,7 @@ class TestUnrolledBlockedSolvers:
         """Below the 32-dim window the gate flips on batch size; both
         routes must agree numerically (the MAT LEDH shape (500,16,16)
         takes the unrolled route, a single (16,16) the XLA loop)."""
-        from particle_filters_tpu.core.linalg import (
+        from particle_filters_jax.core.linalg import (
             chol_nojitter,
             tri_solve_lower,
         )
@@ -263,14 +262,13 @@ class TestUnrolledBlockedSolvers:
 
 class TestCondSpdPower:
     """cond_spd_power — the flow filters' default cond(S) diagnostic
-    (power + Cholesky inverse iteration; the exact eigvalsh costs 67 ms
-    per (100,144,144) batch on TPU, benchmarks/profile_d144_linalg.py)."""
+    (power + Cholesky inverse iteration in place of a batched eigvalsh)."""
 
     @pytest.mark.parametrize(
         "n,spread", [(8, 10.0), (64, 1e2), (144, 1e3), (144, 1e6)]
     )
     def test_matches_exact_on_geomspace_spectra(self, n, spread):
-        from particle_filters_tpu.core.linalg import cond_spd, cond_spd_power
+        from particle_filters_jax.core.linalg import cond_spd, cond_spd_power
 
         # geomspace eigenvalues = the dense-spectrum WORST case for power
         # iteration (lambda2/lambda1 -> 1 as n grows); real innovation
@@ -283,7 +281,7 @@ class TestCondSpdPower:
         assert 0.9 * exact <= est <= 1.1 * exact
 
     def test_batched_and_reuses_factor(self):
-        from particle_filters_tpu.core.linalg import (
+        from particle_filters_jax.core.linalg import (
             chol_with_jitter,
             cond_spd,
             cond_spd_power,
@@ -301,7 +299,7 @@ class TestCondSpdPower:
         np.testing.assert_allclose(est2, exact, rtol=0.1)
 
     def test_at_least_one_and_identity(self):
-        from particle_filters_tpu.core.linalg import cond_spd_power
+        from particle_filters_jax.core.linalg import cond_spd_power
 
         c = float(cond_spd_power(jnp.eye(16, dtype=jnp.float32)))
         assert 1.0 <= c <= 1.0 + 1e-4

@@ -16,14 +16,14 @@ import pytest
 from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
-from particle_filters_tpu.models import ParticleFilter
-from particle_filters_tpu.parallel import (
+from particle_filters_jax.models import ParticleFilter
+from particle_filters_jax.parallel import (
     make_mesh,
     make_sharded_pf_run,
     neighbor_exchange_systematic_resample,
     shard_pf_state,
 )
-from particle_filters_tpu.resampling.hard import systematic_resample_values
+from particle_filters_jax.resampling.hard import systematic_resample_values
 
 S = 8  # shards
 

@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from particle_filters_tpu.models import (
+from particle_filters_jax.models import (
     DPF_OT,
     DifferentiableParticleFilter,
     DifferentiableParticleFilterRNN,
@@ -252,7 +252,7 @@ class TestPairwiseDistances:
     """Reference ``test_dpf_ot_shapes_and_api.py`` pairwise-distance block."""
 
     def test_shape_symmetry_diagonal(self, key):
-        from particle_filters_tpu.resampling.ot import pairwise_squared_distances
+        from particle_filters_jax.resampling.ot import pairwise_squared_distances
 
         x = jax.random.normal(key, (12, 3))
         C = pairwise_squared_distances(x, x)
@@ -262,7 +262,7 @@ class TestPairwiseDistances:
         assert float(C.min()) >= -1e-6
 
     def test_matches_direct_computation(self, key):
-        from particle_filters_tpu.resampling.ot import pairwise_squared_distances
+        from particle_filters_jax.resampling.ot import pairwise_squared_distances
 
         x = jax.random.normal(key, (6, 2))
         y = jax.random.normal(jax.random.fold_in(key, 1), (4, 2))
@@ -349,7 +349,7 @@ class TestDPFShapesAPI:
     def test_ot_epsilon_effect_on_plan_sparsity(self, key):
         """Smaller ε concentrates the transport plan (reference
         ``test_sinkhorn_epsilon_effect``)."""
-        from particle_filters_tpu.resampling.ot import sinkhorn_ot_resample
+        from particle_filters_jax.resampling.ot import sinkhorn_ot_resample
 
         p = jax.random.normal(key, (24, 2))
         w = jax.nn.softmax(jax.random.normal(jax.random.fold_in(key, 1), (24,)))
@@ -362,7 +362,7 @@ class TestDPFShapesAPI:
         assert sparsity[0.05] < sparsity[5.0]
 
     def test_ot_diagnostics_keys(self, key):
-        from particle_filters_tpu.resampling.ot import sinkhorn_ot_resample
+        from particle_filters_jax.resampling.ot import sinkhorn_ot_resample
 
         p = jax.random.normal(key, (16, 2))
         w = jnp.full((16,), 1.0 / 16)

@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from particle_filters_tpu.models.dpf import (
+from particle_filters_jax.models.dpf import (
     DPF_OT,
     DifferentiableParticleFilter,
     DifferentiableParticleFilterRNN,

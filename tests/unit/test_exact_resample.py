@@ -21,12 +21,12 @@ import pytest
 from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
-from particle_filters_tpu.resampling.exact import (
+from particle_filters_jax.resampling.exact import (
     _split_f32_to_limbs3,
     exact_child_run_ends,
     quantize_weights_limbs,
 )
-from particle_filters_tpu.resampling.hard import _child_run_ends
+from particle_filters_jax.resampling.hard import _child_run_ends
 
 # one compile shared across tests (eager runs of the multi-limb pipeline
 # cost ~10s each on this host; jitted they are milliseconds)
@@ -233,7 +233,7 @@ class TestShardedExactResample:
 
     def _run_neighbor_exact(self, key, particles, logw, radius):
         mesh = self._mesh()
-        from particle_filters_tpu.parallel import (
+        from particle_filters_jax.parallel import (
             neighbor_exchange_systematic_resample,
         )
 
@@ -296,7 +296,7 @@ class TestShardedExactResample:
         k_res = jax.random.fold_in(key, 6)
 
         mesh = self._mesh()
-        from particle_filters_tpu.parallel import (
+        from particle_filters_jax.parallel import (
             neighbor_exchange_systematic_resample,
         )
 

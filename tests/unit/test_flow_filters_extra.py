@@ -9,8 +9,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from particle_filters_tpu.core.linalg import mvn_logpdf_chol
-from particle_filters_tpu.models import (
+from particle_filters_jax.core.linalg import mvn_logpdf_chol
+from particle_filters_jax.models import (
     EDHConfig,
     EDHFlowPF,
     ExtendedKalmanFilter,

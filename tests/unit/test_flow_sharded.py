@@ -20,8 +20,8 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-from particle_filters_tpu.core.linalg import mvn_logpdf_chol
-from particle_filters_tpu.models import (
+from particle_filters_jax.core.linalg import mvn_logpdf_chol
+from particle_filters_jax.models import (
     EDHConfig,
     EDHFlowPF,
     ExtendedKalmanFilter,
@@ -29,7 +29,7 @@ from particle_filters_tpu.models import (
     LEDHConfig,
     LEDHFlowPF,
 )
-from particle_filters_tpu.parallel import (
+from particle_filters_jax.parallel import (
     make_sharded_flow_run,
     shard_flow_state,
 )

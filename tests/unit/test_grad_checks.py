@@ -15,9 +15,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from particle_filters_tpu.models.dpf import DPF_OT, DifferentiableParticleFilter
-from particle_filters_tpu.resampling.ot import sinkhorn_ot_resample
-from particle_filters_tpu.resampling.soft import soft_resample
+from particle_filters_jax.models.dpf import DPF_OT, DifferentiableParticleFilter
+from particle_filters_jax.resampling.ot import sinkhorn_ot_resample
+from particle_filters_jax.resampling.soft import soft_resample
 
 
 @pytest.fixture()

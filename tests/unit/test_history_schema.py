@@ -1,7 +1,9 @@
 """Unified run-history schema across every filter driver (VERDICT r2 #6).
 
-Every particle-filter ``run`` — generic ``ParticleFilter``, fused Pallas
-``FusedSIRFilter``, and the EDH/LEDH flow filters — must emit the shared
+Every particle-filter ``run`` — generic ``ParticleFilter``, its sharded
+form under ``parallel.make_sharded_pf_run``, ``FusedSIRFilter``, and the
+EDH/LEDH flow
+filters — must emit the shared
 history keys ``mean / cov / ess / resampled`` with consistent shapes and
 dtypes, plus ``log_evidence`` where the driver defines it (SIR paths).
 One parametrized test so a future driver can't silently drop a key.
@@ -11,19 +13,23 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 
-from particle_filters_tpu.core.linalg import mvn_logpdf_chol
-from particle_filters_tpu.models import (
+from particle_filters_jax.core.linalg import mvn_logpdf_chol
+from particle_filters_jax.models import (
     EDHConfig,
     EDHFlowPF,
     ExtendedKalmanFilter,
+    FusedSIRFilter,
     GaussianTracker,
     LEDHConfig,
     LEDHFlowPF,
     ParticleFilter,
 )
-from particle_filters_tpu.ops.fused_pf import FusedSIRFilter
+from particle_filters_jax.parallel import (
+    make_mesh,
+    make_sharded_pf_run,
+    shard_pf_state,
+)
 
 T = 12
 NX = 2
@@ -40,30 +46,45 @@ def _zs_1d(key):
     return 0.3 * jax.random.normal(key, (T, 1))
 
 
-def _run_particle_filter(key):
+def _sv_filter(n, axis_name=None):
     def obs_loglik(x, z):
         var = jnp.exp(x[0])
         return -0.5 * (z[0] ** 2 / var + jnp.log(var))
 
-    pf = ParticleFilter(
+    return ParticleFilter(
         lambda x, u: ALPHA * x, None,
         Q=np.array([[SIGMA**2]], np.float32), R=None,
-        Np=256, obs_loglik=obs_loglik,
+        Np=n, obs_loglik=obs_loglik, axis_name=axis_name,
     )
+
+
+def _run_particle_filter(key, n=256):
+    pf = _sv_filter(n)
     st = pf.initialize(key, jnp.zeros(1), jnp.array([[1.0]]))
     _, hist = pf.run(jax.random.fold_in(key, 1), st, _zs_1d(key))
     return hist, 1, True  # hist, nx, has_log_evidence
 
 
-def _run_fused(key):
-    g_vec = lambda x: ALPHA * x
-    obs_ll_vec = lambda x, z: -0.5 * (z[0] ** 2 / jnp.exp(x) + x)
+def _run_fused_sir(key, n=256):
     pf = FusedSIRFilter(
-        g_vec, obs_ll_vec, Q=np.array([[SIGMA**2]]), Np=1024, block=1024
+        lambda x: ALPHA * x,
+        lambda x, z: -0.5 * (z * z / jnp.exp(x) + x),
+        Q=np.array([[SIGMA**2]], np.float32), Np=n,
     )
     st = pf.initialize(key, jnp.zeros(1), jnp.array([[1.0]]))
-    with pltpu.force_tpu_interpret_mode():
-        _, hist = pf.run(jax.random.fold_in(key, 1), st, _zs_1d(key))
+    _, hist = pf.run(jax.random.fold_in(key, 1), st, _zs_1d(key))
+    return hist, 1, True
+
+
+def _run_sharded_sir(key, n=256):
+    mesh = make_mesh(n_batch=1, n_particles=2, devices=jax.devices()[:2])
+    pf = _sv_filter(n, axis_name="particles")
+    st = shard_pf_state(
+        pf.initialize(key, jnp.zeros(1), jnp.array([[1.0]])), mesh
+    )
+    _, hist = make_sharded_pf_run(pf, mesh)(
+        jax.random.fold_in(key, 1), st, _zs_1d(key)
+    )
     return hist, 1, True
 
 
@@ -116,7 +137,8 @@ def _run_ledh(key):
 
 DRIVERS = {
     "particle_filter": _run_particle_filter,
-    "fused_sir": _run_fused,
+    "sharded_sir": _run_sharded_sir,
+    "fused_sir": _run_fused_sir,
     "edh": _run_edh,
     "ledh": _run_ledh,
 }
@@ -140,37 +162,14 @@ class TestHistorySchema:
             assert hist["log_evidence"].shape == (T,)
             assert np.all(np.isfinite(np.asarray(hist["log_evidence"])))
 
-    def test_fused_log_evidence_matches_generic(self, key):
-        """The fused path's per-step log-normalizer must equal the generic
-        ParticleFilter's incremental log-evidence convention: identical
-        particles aren't reproducible (different PRNG streams), but on the
-        SAME model the cumulative evidences must agree closely at large N."""
-        zs = _zs_1d(key)
-
-        def obs_loglik(x, z):
-            var = jnp.exp(x[0])
-            return -0.5 * (z[0] ** 2 / var + jnp.log(var))
-
-        pf = ParticleFilter(
-            lambda x, u: ALPHA * x, None,
-            Q=np.array([[SIGMA**2]], np.float32), R=None,
-            Np=4096, obs_loglik=obs_loglik,
-        )
-        st = pf.initialize(key, jnp.zeros(1), jnp.array([[1.0]]))
-        _, hist_g = pf.run(jax.random.fold_in(key, 1), st, zs)
-
-        g_vec = lambda x: ALPHA * x
-        obs_ll_vec = lambda x, z: -0.5 * (z[0] ** 2 / jnp.exp(x) + x)
-        pff = FusedSIRFilter(
-            g_vec, obs_ll_vec, Q=np.array([[SIGMA**2]]), Np=4096, block=4096
-        )
-        stf = pff.initialize(key, jnp.zeros(1), jnp.array([[1.0]]))
-        with pltpu.force_tpu_interpret_mode():
-            _, hist_f = pff.run(jax.random.fold_in(key, 1), stf, zs)
-
-        # obs_ll_vec drops the constant -0.5*z^2... no — it matches
-        # obs_loglik exactly (same formula); cumulative evidence is a sum
-        # of T per-step terms, each an N=4096 Monte-Carlo average.
+    def test_sharded_log_evidence_matches_generic(self, key):
+        """The sharded run's per-step log-normalizer follows the generic
+        ParticleFilter's incremental log-evidence convention: shards draw
+        their own noise (the key is folded per shard), so particles differ,
+        but on the SAME model the cumulative evidences agree closely at
+        large N."""
+        hist_g, _, _ = _run_particle_filter(key, n=4096)
+        hist_s, _, _ = _run_sharded_sir(key, n=4096)
         tot_g = float(jnp.sum(hist_g["log_evidence"]))
-        tot_f = float(jnp.sum(hist_f["log_evidence"]))
-        assert abs(tot_g - tot_f) < 0.15 * abs(tot_g) + 0.25
+        tot_s = float(jnp.sum(hist_s["log_evidence"]))
+        assert abs(tot_g - tot_s) < 0.15 * abs(tot_g) + 0.25

@@ -10,14 +10,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from particle_filters_tpu.models import (
+from particle_filters_jax.models import (
     KPFConfig,
     KernelParticleFilter,
     Model,
     build_localization_matrix,
     gaspari_cohn,
 )
-from particle_filters_tpu.models.kernel_particle_filter import (
+from particle_filters_jax.models.kernel_particle_filter import (
     matrix_kernel_and_divergence,
     rbf_1d,
     scalar_kernel_full_matrix,
@@ -310,7 +310,7 @@ class TestKPFAPI:
 
     def test_bounded_loop_matches_while_loop(self, key):
         """KPFConfig.bounded_loop (masked fori_loop of max_steps iterations;
-        while-free for outer vmap/scan on TPU — VERDICT r3 weak #3) equals
+        while-free — VERDICT r3 weak #3) equals
         the adaptive while_loop bit for bit: frozen-carry iterations
         recompute and discard."""
         model, X, y = self._setup(key)
@@ -331,8 +331,8 @@ class TestKPFAPI:
 
     def test_bounded_loop_vmaps(self, key):
         """The bounded analyze composes with vmap over a batch of ensembles
-        (the while_loop variant is the one that can hard-fault under extra
-        device-side iteration levels on TPU)."""
+        (the variant written for backends that fault on a while_loop under
+        extra device-side iteration levels)."""
         model, X, y = self._setup(key)
         kpf = KernelParticleFilter(
             model, KPFConfig(max_steps=10, bounded_loop=True)

@@ -29,7 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from particle_filters_tpu.models.kernel_particle_filter import (
+from particle_filters_jax.models.kernel_particle_filter import (
     KernelParticleFilter,
     KPFConfig,
     Model,

@@ -13,7 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from particle_filters_tpu.models import (
+from particle_filters_jax.models import (
     ExtendedKalmanFilter,
     GaussianTracker,
     LEDHConfig,

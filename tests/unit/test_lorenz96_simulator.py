@@ -2,7 +2,7 @@
 ``tests/unit_tests/simulator/test_lorenz96_{dynamics,io,shapes_and_seed}.py``
 (38 tests upstream): RHS structure, RK4 integration, chaos properties,
 persistence, and the simulate_lorenz96 protocol
-(``particle_filters_tpu/simulators/lorenz96.py``).
+(``particle_filters_jax/simulators/lorenz96.py``).
 
 Complements the smaller smoke tests in ``tests/unit/test_simulators.py``.
 """
@@ -12,7 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from particle_filters_tpu.simulators.lorenz96 import (
+from particle_filters_jax.simulators.lorenz96 import (
     Lorenz96SimulationResult,
     ObsModel,
     compute_ensemble_spread,

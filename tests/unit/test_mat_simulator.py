@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from particle_filters_tpu.simulators.acoustic_tracking import (
+from particle_filters_jax.simulators.acoustic_tracking import (
     MATDataset,
     MATDynamicsConfig,
     MATScenarioConfig,
@@ -78,7 +78,7 @@ class TestCVDynamics:
             use_article_init=False, enforce_boundaries=True,
         )
         # direct mechanism check instead: propagate a state past the wall
-        from particle_filters_tpu.simulators.acoustic_tracking import _reflect
+        from particle_filters_jax.simulators.acoustic_tracking import _reflect
 
         pos, vel = _reflect(jnp.array([-0.5]), jnp.array([-1.0]), 0.0, 10.0, 1e-6)
         assert float(pos[0]) > 0 and float(vel[0]) == 1.0

@@ -10,13 +10,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from particle_filters_tpu.core.linalg import (
+from particle_filters_jax.core.linalg import (
     chol_with_jitter,
     diag_gaussian_logpdf,
     inv_psd,
     solve_psd,
 )
-from particle_filters_tpu.models import (
+from particle_filters_jax.models import (
     DifferentiableParticleFilter,
     EDHConfig,
     EDHFlowPF,
@@ -28,7 +28,7 @@ from particle_filters_tpu.models import (
     make_ekf_state,
     make_ukf_state,
 )
-from particle_filters_tpu.simulators import (
+from particle_filters_jax.simulators import (
     simulate_lgssm,
     simulate_lorenz96,
     simulate_sv_1d,
@@ -48,7 +48,7 @@ class TestLinalgExtra:
         )
 
     def test_diag_gaussian_logpdf_matches_mvn(self, key):
-        from particle_filters_tpu.core.linalg import mvn_logpdf
+        from particle_filters_jax.core.linalg import mvn_logpdf
 
         x = jax.random.normal(key, (3,))
         mean = jnp.array([0.5, -0.5, 1.0])
@@ -238,7 +238,7 @@ class TestFlowConfigEdges:
         Q = 0.05 * jnp.eye(2)
         R = 0.1 * jnp.eye(2)
         LQ = jnp.linalg.cholesky(Q + 1e-9 * jnp.eye(2))
-        from particle_filters_tpu.core.linalg import mvn_logpdf_chol
+        from particle_filters_jax.core.linalg import mvn_logpdf_chol
 
         g = lambda x, u, v: A @ x + v
         h = lambda x: x
@@ -271,7 +271,7 @@ class TestFlowConfigEdges:
         assert np.all(np.isfinite(np.asarray(st2.mean)))
 
     def test_resampling_disabled_by_default_ledh(self, key):
-        from particle_filters_tpu.models import LEDHConfig
+        from particle_filters_jax.models import LEDHConfig
 
         assert LEDHConfig().resample_ess_ratio == 0.0  # reference default
 

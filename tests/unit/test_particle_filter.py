@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from particle_filters_tpu.models import ParticleFilter
+from particle_filters_jax.models import ParticleFilter
 
 
 @pytest.fixture(scope="module")
@@ -177,7 +177,7 @@ class TestLogEvidence:
         """On a linear-Gaussian SSM, Σ_t log p̂(z_t|z_{1:t−1}) from the PF
         converges to the exact KF log-likelihood (up to the Gaussian constant
         the PF's weight update drops: T·ny/2·log 2π + T/2·log|R| here)."""
-        from particle_filters_tpu.models import kalman_filter_general
+        from particle_filters_jax.models import kalman_filter_general
 
         s = small_system
         T = 100
@@ -269,7 +269,7 @@ class TestDiagnosticsFixes:
 
     def _pf(self, method, key):
         import jax.numpy as jnp
-        from particle_filters_tpu.models import ParticleFilter
+        from particle_filters_jax.models import ParticleFilter
 
         pf = ParticleFilter(
             lambda x, u: 0.9 * x, None, jnp.array([[0.04]]), None,
@@ -284,7 +284,7 @@ class TestDiagnosticsFixes:
     def test_unique_frac_matches_actual_ancestry(self, key, method):
         """track_degeneracy's unique_frac must reflect the configured
         resample method's ancestry, not a hardwired systematic one."""
-        from particle_filters_tpu.resampling.hard import resample_indices
+        from particle_filters_jax.resampling.hard import resample_indices
 
         pf, st = self._pf(method, key)
         zs = jnp.linspace(-1.0, 1.0, 5)[:, None]
@@ -298,7 +298,7 @@ class TestDiagnosticsFixes:
             k_pred, k_upd = jax.random.split(keys[t])
             particles = pf.predict(k_pred, state, None)
             loglik = jax.vmap(lambda x: pf._obs_loglik(x, zs[t]))(particles)
-            from particle_filters_tpu.core.weights import log_normalize
+            from particle_filters_jax.core.weights import log_normalize
 
             logw_pre, _ = log_normalize(state.log_weights + loglik)
             k_idx, _ = pf._resample_keys(k_upd)
@@ -327,8 +327,8 @@ class TestDiagnosticsFixes:
 
 class TestLEDHScheduleValidation:
     def _ledh(self, key):
-        from particle_filters_tpu.core.linalg import mvn_logpdf_chol
-        from particle_filters_tpu.models import (
+        from particle_filters_jax.core.linalg import mvn_logpdf_chol
+        from particle_filters_jax.models import (
             ExtendedKalmanFilter,
             GaussianTracker,
             LEDHConfig,

@@ -11,8 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from particle_filters_tpu.core.weights import log_normalize, uniform_logw
-from particle_filters_tpu.resampling import (
+from particle_filters_jax.core.weights import log_normalize, uniform_logw
+from particle_filters_jax.resampling import (
     RNNResampler,
     multinomial_resample,
     ot_resample,
@@ -23,7 +23,7 @@ from particle_filters_tpu.resampling import (
     stratified_resample,
     systematic_resample,
 )
-from particle_filters_tpu.resampling.hard import systematic_resample_values
+from particle_filters_jax.resampling.hard import systematic_resample_values
 
 METHODS = ["systematic", "multinomial", "stratified", "residual"]
 
@@ -293,7 +293,7 @@ class TestOTBlockwise:
     """Blockwise Sinkhorn (never materializes N×N) vs the dense path."""
 
     def test_matches_dense(self, key):
-        from particle_filters_tpu.resampling import (
+        from particle_filters_jax.resampling import (
             sinkhorn_ot_resample,
             sinkhorn_ot_resample_blockwise,
         )
@@ -312,7 +312,7 @@ class TestOTBlockwise:
 
     def test_ragged_n_padding(self, key):
         """N not a multiple of the block size is handled by padding."""
-        from particle_filters_tpu.resampling import sinkhorn_ot_resample_blockwise
+        from particle_filters_jax.resampling import sinkhorn_ot_resample_blockwise
 
         n = 77
         p = jax.random.normal(key, (n, 2))
@@ -322,7 +322,7 @@ class TestOTBlockwise:
         assert np.all(np.isfinite(np.asarray(b_p)))
 
     def test_differentiable(self, key):
-        from particle_filters_tpu.resampling import ot_resample_blockwise
+        from particle_filters_jax.resampling import ot_resample_blockwise
 
         p = jax.random.normal(key, (64, 2))
         lw = jax.random.normal(key, (64,))
@@ -341,7 +341,7 @@ class TestSystematicCounts:
     inverse-CDF convention — see CLAUDE.md design invariants)."""
 
     def test_matches_ancestor_bincount(self, key):
-        from particle_filters_tpu.resampling.hard import systematic_counts
+        from particle_filters_jax.resampling.hard import systematic_counts
 
         n = 128
         lw = jax.random.normal(key, (n,)) * 2.0
@@ -352,7 +352,7 @@ class TestSystematicCounts:
         )
 
     def test_sum_is_n(self, key):
-        from particle_filters_tpu.resampling.hard import systematic_counts
+        from particle_filters_jax.resampling.hard import systematic_counts
 
         for n in (1, 7, 64):
             w = jax.nn.softmax(jax.random.normal(jax.random.fold_in(key, n), (n,)))
@@ -360,7 +360,7 @@ class TestSystematicCounts:
             assert int(jnp.sum(counts)) == n
 
     def test_point_mass(self, key):
-        from particle_filters_tpu.resampling.hard import systematic_counts
+        from particle_filters_jax.resampling.hard import systematic_counts
 
         n = 32
         w = jnp.zeros((n,)).at[5].set(1.0)
@@ -369,143 +369,101 @@ class TestSystematicCounts:
         assert int(jnp.sum(counts)) == n
 
 
-class TestBlockedPallasResample:
-    """Hierarchical blocked kernel (interpret mode) == reference ancestry.
+class TestResampleValuesFromStarts:
+    """``systematic_resample_values`` (sorted starts → integer mark
+    cumsum → gather) against the ancestor-index path of ``hard.py`` and a
+    NumPy oracle, across weight regimes. The values are pure selection, so
+    every comparison is exact."""
 
-    The real kernel is exercised on TPU by ``tpu_tests/``; here the same
-    code runs under ``pltpu.force_tpu_interpret_mode`` so the Q-row
-    sub-group selection, the per-sub overflow flag, and the XLA fallback
-    routing are all checked on CPU.
-    """
+    @staticmethod
+    def _oracle(starts, p):
+        idx = np.searchsorted(starts, np.arange(p.shape[0]), side="right") - 1
+        return p[idx]
 
-    def _run(self, key, n, d, scale):
-        from jax.experimental.pallas import tpu as pltpu
-
-        from particle_filters_tpu.ops.resample_pallas import (
-            systematic_resample_values_blocked,
+    def _run(self, key, w, d):
+        from particle_filters_jax.resampling.hard import (
+            _systematic_starts,
+            systematic_resample_values,
         )
-        from particle_filters_tpu.resampling.hard import systematic_resample
 
-        w = jax.nn.softmax(jax.random.normal(key, (n,)) * scale)
+        n = w.shape[0]
         p = jax.random.normal(jax.random.fold_in(key, 1), (n, d))
-        v_ref = jnp.take(p, systematic_resample(key, w), axis=0)
-        with pltpu.force_tpu_interpret_mode():
-            v_blk = systematic_resample_values_blocked(key, p, w=w)
-        np.testing.assert_allclose(
-            np.asarray(v_ref), np.asarray(v_blk), atol=1e-4
-        )
+        v = np.asarray(systematic_resample_values(key, p, w=w))
+        v_idx = np.asarray(jnp.take(p, systematic_resample(key, w), axis=0))
+        starts = np.asarray(_systematic_starts(key, w, n))
+        np.testing.assert_array_equal(v, v_idx)
+        np.testing.assert_array_equal(v, self._oracle(starts, np.asarray(p)))
+        return v
 
     def test_exact_smooth_weights(self, key):
-        self._run(key, 4096, 1, 1.0)
+        w = jax.nn.softmax(jax.random.normal(key, (4096,)))
+        self._run(key, w, 1)
 
     def test_exact_near_uniform_weights(self, key):
-        """Near-uniform weights: every sub-group's ancestor span fits the
-        window with maximal slack — the pure fast-path regime."""
-        self._run(jax.random.fold_in(key, 9), 4096, 1, 0.05)
-
-    def test_span_ranks_match_dense_compare(self, key):
-        """The O(n_fc) scatter+cumsum rank inversion used for routing must
-        equal the dense-compare definition bit-for-bit — (a0, a_hi) are
-        what the kernel's exactness rests on, so they are checked against
-        the quadratic oracle across weight skews, including a ragged n."""
-        from particle_filters_tpu.ops import resample_pallas as rp
-        from particle_filters_tpu.resampling.hard import _systematic_starts
-
-        for n, scale in [(4096, 0.05), (4096, 3.0), (3000, 2.0)]:
-            w = jax.nn.softmax(jax.random.normal(key, (n,)) * scale)
-            starts = _systematic_starts(key, w, n)
-            n_subs = -(-n // rp._SUB)
-            n_subs_pad = -(-n_subs // rp._SG) * rp._SG
-            pad = n_subs * rp._SUB - n
-            scf = jnp.concatenate(
-                [starts, jnp.full((pad,), jnp.int32(2**30))]
-            ).reshape(n_subs, rp._SUB)[:, 0]
-
-            # module's one-scatter + blocked-cumsum ranks
-            a0, a_hi = rp._rank_window(scf, n_subs_pad)
-
-            # dense-compare oracle (the r2 implementation's definition)
-            k0 = jnp.arange(n_subs_pad, dtype=jnp.int32) * rp._SUB
-            or_a0 = jnp.maximum(
-                jnp.sum((scf[None, :] <= k0[:, None]), axis=1) - 1, 0
-            )
-            probe = jnp.minimum(k0 + (rp._SUB - 1), n - 1)
-            or_hi = jnp.sum((scf[None, :] <= probe[:, None]), axis=1) - 1
-
-            np.testing.assert_array_equal(np.asarray(a0), np.asarray(or_a0))
-            np.testing.assert_array_equal(np.asarray(a_hi), np.asarray(or_hi))
+        k = jax.random.fold_in(key, 9)
+        w = jax.nn.softmax(0.05 * jax.random.normal(k, (4096,)))
+        self._run(k, w, 1)
 
     def test_exact_heavy_weights_multi_dim(self, key):
-        self._run(jax.random.fold_in(key, 7), 4096, 2, 3.0)
+        k = jax.random.fold_in(key, 7)
+        w = jax.nn.softmax(3.0 * jax.random.normal(k, (4096,)))
+        self._run(k, w, 2)
 
     def test_exact_tail_block(self, key):
-        # n not a multiple of the 512 output block: pad blocks must not
-        # flag spuriously and the tail outputs must still be exact
-        self._run(jax.random.fold_in(key, 8), 3000, 1, 2.0)
+        """A ragged N (not a multiple of any block width)."""
+        k = jax.random.fold_in(key, 8)
+        w = jax.nn.softmax(2.0 * jax.random.normal(k, (3000,)))
+        self._run(k, w, 1)
 
-    def test_mid_tier_exact(self, key):
-        """Ancestor spans in [Q, Q_MID) must route to the Q=8 middle tier
-        and still reproduce the reference ancestry exactly. Weights are
-        constructed so one sub-group's ancestors span ~6 fine chunks
-        (a 640-particle near-zero-weight run starting mid-sub-group, so
-        the group consumes real ancestors on both sides of the gap),
-        which overflows Q=3 but fits Q=8 — the routing is asserted via
-        the module's own span."""
-        from jax.experimental.pallas import tpu as pltpu
-
-        from particle_filters_tpu.ops import resample_pallas as rp
-        from particle_filters_tpu.resampling.hard import (
-            _systematic_starts,
-            systematic_resample,
-        )
-
+    def test_moderate_degeneracy_exact(self, key):
+        """A 640-particle near-zero-weight run starting mid-block: the
+        outputs around the gap draw real ancestors on both sides of it."""
         n = 4096
         w = jnp.ones((n,)).at[64:704].set(1e-6)
         w = w / jnp.sum(w)
-        p = jax.random.normal(jax.random.fold_in(key, 3), (n, 2))
+        v = self._run(jax.random.fold_in(key, 3), w, 4)
+        assert v.shape == (n, 4)
 
-        # prove this case exercises the middle tier, not fast or fallback
-        starts = _systematic_starts(key, w, n)
-        n_subs = -(-n // rp._SUB)
-        n_subs_pad = -(-n_subs // rp._SG) * rp._SG
-        scf = starts.reshape(n_subs, rp._SUB)[:, 0]
-        a0, a_hi = rp._rank_window(scf, n_subs_pad)
-        span = int(jnp.max(a_hi - a0))
-        assert rp._QROWS <= span < rp._QROWS_MID
-
-        v_ref = jnp.take(p, systematic_resample(key, w), axis=0)
-        with pltpu.force_tpu_interpret_mode():
-            v_blk = rp.systematic_resample_values_blocked(key, p, w=w)
-        np.testing.assert_allclose(
-            np.asarray(v_ref), np.asarray(v_blk), atol=1e-4
-        )
-
-    def test_degenerate_routes_to_fallback(self, key):
-        from jax.experimental.pallas import tpu as pltpu
-
-        from particle_filters_tpu.ops.resample_pallas import (
-            systematic_resample_values_blocked,
-        )
-
+    def test_degenerate_point_mass(self, key):
         n = 4096
         w = jnp.zeros(n).at[321].set(1.0)  # one particle takes every slot
         p = jax.random.normal(key, (n, 2))
-        with pltpu.force_tpu_interpret_mode():
-            v = systematic_resample_values_blocked(
-                jax.random.PRNGKey(1), p, w=w
-            )
-        np.testing.assert_allclose(
-            np.asarray(v), np.tile(np.asarray(p[321]), (n, 1)), atol=1e-4
+        from particle_filters_jax.resampling.hard import (
+            systematic_resample_values,
         )
+
+        v = systematic_resample_values(jax.random.PRNGKey(1), p, w=w)
+        np.testing.assert_array_equal(
+            np.asarray(v), np.tile(np.asarray(p[321]), (n, 1))
+        )
+        self._run(key, w, 2)
+
+    def test_run_ends_sorted_under_heavy_weights(self, key):
+        """At N = 2^20 with heavy-tailed weights the blocked float prefix
+        sum is not monotone in rounding; the run ends (and so the starts)
+        must still come out sorted, or a slot would get no single
+        ancestor."""
+        from particle_filters_jax.resampling.hard import (
+            _child_run_ends,
+            systematic_counts,
+        )
+
+        n = 1 << 20
+        k = jax.random.PRNGKey(201)
+        w = jax.nn.softmax(3.0 * jax.random.normal(k, (n,)))
+        t = np.asarray(_child_run_ends(jax.random.fold_in(k, 1), w, n))
+        assert np.all(np.diff(t) >= 0)
+        assert t[-1] == n
+        counts = np.asarray(systematic_counts(jax.random.fold_in(k, 1), w))
+        assert counts.min() >= 0 and counts.sum() == n
 
 
 class TestBlockedCumsum:
-    """core.block_cumsum: the TPU-shaped prefix sum behind the resample
-    starts (5.7x faster than XLA's 1-D cumsum at N=2^20 — see module
-    docstring)."""
+    """core.block_cumsum: the two-level blocked prefix sum behind the
+    resample starts."""
 
     def test_int_exact_across_sizes(self, key):
-        from particle_filters_tpu.core.block_cumsum import blocked_cumsum
+        from particle_filters_jax.core.block_cumsum import blocked_cumsum
 
         for n in [1, 7, 128, 16383, 16384, 16385, 1 << 17, (1 << 17) + 129]:
             x = jax.random.randint(
@@ -516,7 +474,7 @@ class TestBlockedCumsum:
             )
 
     def test_float_close_and_total_consistent(self, key):
-        from particle_filters_tpu.core.block_cumsum import blocked_cumsum
+        from particle_filters_jax.core.block_cumsum import blocked_cumsum
 
         n = (1 << 17) + 3  # ragged: exercises the zero-pad path
         x = jax.nn.softmax(jax.random.normal(key, (n,)))
@@ -531,7 +489,7 @@ class TestBlockedCumsum:
         """The inverse-CDF convention is whatever _child_run_ends computes:
         index, counts, and values paths must stay mutually consistent after
         the blocked-cumsum swap (N above the blocking threshold)."""
-        from particle_filters_tpu.resampling.hard import (
+        from particle_filters_jax.resampling.hard import (
             systematic_counts,
             systematic_resample,
             systematic_resample_values,

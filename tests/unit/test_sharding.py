@@ -9,8 +9,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from particle_filters_tpu.models import ParticleFilter
-from particle_filters_tpu.parallel import (
+from particle_filters_jax.models import ParticleFilter
+from particle_filters_jax.parallel import (
     make_mesh,
     make_sharded_pf_run,
     shard_pf_state,
@@ -120,7 +120,7 @@ class TestShardedDPFTraining:
         import numpy as np
         from jax.sharding import Mesh
 
-        from particle_filters_tpu.parallel.dpf_sharded import (
+        from particle_filters_jax.parallel.dpf_sharded import (
             make_sharded_dpf_train_step,
         )
 
@@ -164,7 +164,7 @@ class TestShardedDPFTraining:
         from jax import shard_map
         from jax.sharding import Mesh, PartitionSpec as P
 
-        from particle_filters_tpu.parallel.dpf_sharded import (
+        from particle_filters_jax.parallel.dpf_sharded import (
             sharded_soft_resample,
         )
 
@@ -200,7 +200,7 @@ class TestShardedDPFTraining:
         import numpy as np
         from jax.sharding import Mesh
 
-        from particle_filters_tpu.parallel.dpf_sharded import (
+        from particle_filters_jax.parallel.dpf_sharded import (
             make_sharded_dpf_train_step,
         )
 

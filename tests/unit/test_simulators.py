@@ -12,7 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from particle_filters_tpu.simulators import (
+from particle_filters_jax.simulators import (
     Lorenz96SimulationResult,
     MATDynamicsConfig,
     MATScenarioConfig,
@@ -81,7 +81,7 @@ class TestLGSSM:
             simulate_lgssm(np.eye(3), s["B"], s["C"], s["D"], s["Sigma"], 5)
 
     def test_npz_roundtrip(self, small_system, tmp_path):
-        from particle_filters_tpu.simulators import LGSSMSimulationResult
+        from particle_filters_jax.simulators import LGSSMSimulationResult
 
         s = small_system
         r = simulate_lgssm(s["A"], s["B"], s["C"], s["D"], s["Sigma"], 10, seed=1)
@@ -124,7 +124,7 @@ class TestSV:
         assert np.isclose(float(r.X[0]), 3.0)
 
     def test_save_load(self, tmp_path):
-        from particle_filters_tpu.simulators import SV1DResults
+        from particle_filters_jax.simulators import SV1DResults
 
         r = simulate_sv_1d(20, 0.9, 0.2, 1.0, seed=1)
         path = str(tmp_path / "sv.npz")
@@ -240,7 +240,7 @@ class TestSNLG:
         assert np.isclose(s_lo, 0.5, rtol=0.1)
 
     def test_npz_json_roundtrip(self, tmp_path):
-        from particle_filters_tpu.simulators.sensor_network_lg import SNLGDataset
+        from particle_filters_jax.simulators.sensor_network_lg import SNLGDataset
 
         cfg = SNLGConfig(d=16, T=3, trials=2, sigmas=(1.0,))
         ds = simulate_snlg_dataset(cfg)
@@ -265,7 +265,7 @@ class TestSkewT:
         assert np.all(z >= 0)
 
     def test_lattice_validation(self):
-        from particle_filters_tpu.simulators.sensor_network_skewt import make_lattice
+        from particle_filters_jax.simulators.sensor_network_skewt import make_lattice
 
         with pytest.raises(ValueError):
             make_lattice(10)
@@ -357,7 +357,7 @@ class TestMAT:
         assert r.X.shape == (10, 3, 4)
 
     def test_npz_roundtrip(self, mat_small, tmp_path):
-        from particle_filters_tpu.simulators.acoustic_tracking import MATDataset
+        from particle_filters_jax.simulators.acoustic_tracking import MATDataset
 
         path = str(tmp_path / "mat.npz")
         mat_small.save_npz(path)

@@ -16,7 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from particle_filters_tpu.simulators.sensor_network_skewt import (
+from particle_filters_jax.simulators.sensor_network_skewt import (
     SkewTDynConfig,
     SkewTGridConfig,
     SkewTMeasConfig,

@@ -4,7 +4,7 @@ grid_coords,io,kernel,simulation}.py``, ~89 tests upstream).
 
 Covers the jitter-ladder Cholesky, config validation, grid coordinates, the
 SE-kernel covariance, npz/json persistence, and the vmapped dataset
-simulation (``particle_filters_tpu/simulators/sensor_network_lg.py``).
+simulation (``particle_filters_jax/simulators/sensor_network_lg.py``).
 """
 
 import json
@@ -14,8 +14,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from particle_filters_tpu.core.linalg import chol_with_jitter
-from particle_filters_tpu.simulators.sensor_network_lg import (
+from particle_filters_jax.core.linalg import chol_with_jitter
+from particle_filters_jax.simulators.sensor_network_lg import (
     SNLGConfig,
     SNLGDataset,
     make_grid_coords,

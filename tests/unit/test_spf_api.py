@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from particle_filters_tpu.models.stochastic_particle_filter import (
+from particle_filters_jax.models.stochastic_particle_filter import (
     LinearGaussianBayes,
     chol_solve_eye,
     run_generalized_spf,

@@ -12,7 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from particle_filters_tpu.models.stochastic_particle_filter import (
+from particle_filters_jax.models.stochastic_particle_filter import (
     kappa2_and_derivative,
 )
 

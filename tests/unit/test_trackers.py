@@ -14,7 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from particle_filters_tpu.models import (
+from particle_filters_jax.models import (
     EKFTracker,
     ExtendedKalmanFilter,
     GaussianTracker,
@@ -177,7 +177,7 @@ class TestCycles:
         """The tracker is a thin shim: threading TrackerState must give the
         same numbers as driving the wrapped filter directly (reference
         ``test_tracker_matches_direct_ekf_usage``)."""
-        from particle_filters_tpu.models import make_ekf_state
+        from particle_filters_jax.models import make_ekf_state
 
         ekf, _ = _sv_filters()
         tracker = GaussianTracker(ekf)

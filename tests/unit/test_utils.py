@@ -8,8 +8,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from particle_filters_tpu.utils import Timer, coverage_95, mae, mse, nees, omat, rmse
-from particle_filters_tpu.utils.checkpoint import (
+from particle_filters_jax.utils import Timer, coverage_95, mae, mse, nees, omat, rmse
+from particle_filters_jax.utils.checkpoint import (
     latest_step,
     restore_checkpoint,
     save_checkpoint,
@@ -67,6 +67,23 @@ class TestTimer:
         assert s["b"]["mean_ms"] >= 0
 
 
+class TestTimeBest:
+    @pytest.mark.parametrize("reps,warmup", [(1, 1), (3, 2)])
+    def test_counts_calls_and_returns_output(self, reps, warmup):
+        from particle_filters_jax.utils import time_best
+
+        calls = []
+
+        def fn(x):
+            calls.append(1)
+            return x * 2.0
+
+        best, first, out = time_best(fn, jnp.ones(3), reps=reps, warmup=warmup)
+        assert len(calls) == warmup + reps
+        assert 0.0 <= best and 0.0 <= first
+        np.testing.assert_array_equal(np.asarray(out), 2.0 * np.ones(3))
+
+
 class TestCheckpoint:
     def test_roundtrip_pytree(self, tmp_path, key):
         state = {
@@ -86,7 +103,7 @@ class TestCheckpoint:
         assert latest_step(str(tmp_path / "nothing")) is None
 
     def test_pfstate_roundtrip(self, tmp_path, key):
-        from particle_filters_tpu.models import ParticleFilter
+        from particle_filters_jax.models import ParticleFilter
 
         pf = ParticleFilter(
             lambda x, u: 0.9 * x, lambda x: x,
@@ -134,27 +151,27 @@ class TestDegeneracyMetrics:
     entropy / Gini / max-weight / unique fraction on log-weights."""
 
     def test_entropy_uniform_is_one(self):
-        from particle_filters_tpu.utils import weight_entropy
+        from particle_filters_jax.utils import weight_entropy
 
         lw = jnp.zeros((64,))  # uniform in log domain up to a constant
         assert np.isclose(float(weight_entropy(lw)), 1.0, atol=1e-6)
 
     def test_entropy_point_mass_is_zero(self):
-        from particle_filters_tpu.utils import weight_entropy
+        from particle_filters_jax.utils import weight_entropy
 
         lw = jnp.full((64,), -1e9).at[3].set(0.0)
         assert float(weight_entropy(lw)) < 1e-6
 
     def test_entropy_single_particle_defined(self):
         """N=1: log(N)=0 must not produce NaN; a lone particle is uniform."""
-        from particle_filters_tpu.utils import weight_entropy
+        from particle_filters_jax.utils import weight_entropy
 
         lw = jnp.zeros((1,))
         assert float(weight_entropy(lw)) == 1.0
         assert float(weight_entropy(lw, normalized=False)) == 0.0
 
     def test_entropy_unnormalized_option(self):
-        from particle_filters_tpu.utils import weight_entropy
+        from particle_filters_jax.utils import weight_entropy
 
         lw = jnp.zeros((64,))
         assert np.isclose(
@@ -162,7 +179,7 @@ class TestDegeneracyMetrics:
         )
 
     def test_gini_bounds(self, key):
-        from particle_filters_tpu.utils import weight_gini
+        from particle_filters_jax.utils import weight_gini
 
         uniform = jnp.zeros((128,))
         assert abs(float(weight_gini(uniform))) < 1e-5
@@ -174,21 +191,21 @@ class TestDegeneracyMetrics:
         assert 0.0 < g < 1.0
 
     def test_max_weight(self):
-        from particle_filters_tpu.utils import max_weight
+        from particle_filters_jax.utils import max_weight
 
         lw = jnp.log(jnp.array([0.7, 0.2, 0.1]))
         assert np.isclose(float(max_weight(lw)), 0.7, atol=1e-6)
 
     def test_unique_fraction(self):
-        from particle_filters_tpu.utils import unique_fraction
+        from particle_filters_jax.utils import unique_fraction
 
         a = jnp.array([0, 0, 0, 3], jnp.int32)
         assert np.isclose(float(unique_fraction(a)), 0.5)
         assert np.isclose(float(unique_fraction(jnp.arange(8))), 1.0)
 
     def test_degeneracy_report_consistent_with_ess(self, key):
-        from particle_filters_tpu.core.weights import ess_from_logw
-        from particle_filters_tpu.utils import degeneracy_report
+        from particle_filters_jax.core.weights import ess_from_logw
+        from particle_filters_jax.utils import degeneracy_report
 
         lw = jax.random.normal(key, (10, 64))
         rep = degeneracy_report(lw)
@@ -201,7 +218,7 @@ class TestDegeneracyMetrics:
         )
 
     def test_batched_entropy_gini(self, key):
-        from particle_filters_tpu.utils import weight_entropy, weight_gini
+        from particle_filters_jax.utils import weight_entropy, weight_gini
 
         lw = jax.random.normal(key, (5, 32))
         assert weight_entropy(lw).shape == (5,)
