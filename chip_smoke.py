@@ -22,8 +22,9 @@ Phases
   agree. Also reports how far default (TF32) precision moves the RMSE.
 - resample: ``resampling.hard.resample_values_from_starts`` (the Triton
   gather on the GPU, the plain path on the CPU) at N ∈ {2²⁰, 2²²},
-  d ∈ {1, 4}, from starts computed once, against a NumPy oracle; the
-  values are pure selection, so they must be bit-identical.
+  d ∈ {1, 4, 144}, from starts computed once, against a NumPy oracle;
+  the values are pure selection, so for the same starts they must be
+  bit-identical.
 - families: every filter family once through its public entry point at
   the widths ``benchmarks/run_benchmarks.py`` uses (T cut to a few steps),
   on the GPU and on the CPU, compared within a stated tolerance.
@@ -122,6 +123,10 @@ def _check(cond: bool, msg: str) -> None:
 N_MAIN = 1 << 20
 T_MAIN = 200
 N_FOUR_PER_CARD = 1 << 22
+# State widths of the resample phase: the SV state, a small tracker state,
+# and the skew-t flow state (wider than one column block of the kernel).
+RESAMPLE_WIDTHS = (1, 4, 144)
+RESAMPLE_LOG_SIZES = (20, 22)
 
 
 class Ctx:
@@ -292,9 +297,12 @@ def phase_resample(ctx: Ctx) -> None:
 
     regimes = {"smooth": 1.0, "near_uniform": 0.05, "heavy": 3.0,
                "degenerate": None}
-    for lg in (20, 22):
+    rng = np.random.default_rng(5)
+    for lg in RESAMPLE_LOG_SIZES:
         n = 1 << lg
-        for d in (1, 4):
+        for d in RESAMPLE_WIDTHS:
+            p = rng.standard_normal((n, d), dtype=np.float32)
+            p_g = jax.device_put(p, ctx.gpu)
             for name, scale in regimes.items():
                 key = jax.random.PRNGKey(lg * 10 + d)
                 with jax.default_device(ctx.cpu):
@@ -305,12 +313,10 @@ def phase_resample(ctx: Ctx) -> None:
                             scale * jax.random.normal(key, (n,)))
                     starts = np.asarray(hard._systematic_starts(
                         jax.random.fold_in(key, 1), w, n))
-                    p = np.asarray(jax.random.normal(
-                        jax.random.fold_in(key, 2), (n, d)))
                     out_cpu = np.asarray(
                         jax.jit(hard.resample_values_from_starts)(starts, p))
                 fn = jax.jit(hard.resample_values_from_starts)
-                s_g, p_g = jax.device_put((starts, p), ctx.gpu)
+                s_g = jax.device_put(starts, ctx.gpu)
                 out_gpu = np.asarray(jax.block_until_ready(fn(s_g, p_g)))
                 oracle = _numpy_resample_oracle(starts, p)
                 eq_gpu = np.array_equal(out_gpu, oracle)
@@ -320,6 +326,7 @@ def phase_resample(ctx: Ctx) -> None:
                       f"unique={len(np.unique(starts))}")
                 _check(eq_gpu and eq_cpu,
                        f"resample mismatch at N=2^{lg} d={d} {name}")
+            del p, p_g
 
 
 # -- families -----------------------------------------------------------------

@@ -8,7 +8,7 @@ with in interpret mode. Each stays only while it beats its twin end to end
 on the card (PERF.md).
 
 - ``resample_triton``: systematic-resample gather from sorted child-run
-  starts (per-slot binary search + gather).
+  starts (per-row binary search + row gather, any state width).
 - ``fused_sir_triton``: one SIR step for scalar elementwise models —
   propagate, weight and per-block weight/moment partials in one pass.
 """

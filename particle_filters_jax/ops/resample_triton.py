@@ -1,12 +1,13 @@
 """Systematic-resample gather as a Triton-route Pallas kernel.
 
 Given the sorted child-run starts of systematic resampling (``starts[0] =
-0``; particle j fills output slots [starts_j, starts_{j+1})), output slot i
-holds ``particles[max{j : starts_j ≤ i}]``. Each program owns a block of
-output slots, binary-searches the starts for every slot's ancestor (the
-starts stay in L2 at the sizes used here) and gathers the particle values.
-Pure selection: bit-identical to the plain path of
-``resampling.hard.resample_values_from_starts``.
+0``; particle j fills output slots [starts_j, starts_{j+1})), output row i
+holds ``particles[max{j : starts_j ≤ i}]``. Each program owns a tile of
+output rows × state columns: it binary-searches the starts for every row's
+ancestor (the starts stay in L2 at the sizes used here) and copies the
+ancestors' columns as one 2-D gather, so one kernel serves every state
+width. Pure selection: for the same starts the output is bit-identical to
+the plain path of ``resampling.hard.resample_values_from_starts``.
 """
 
 from __future__ import annotations
@@ -20,13 +21,23 @@ from jax import lax
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import triton as plgpu
 
-BLOCK = 1024  # output slots per program
-MAX_DIM = 16  # state dims gathered one column at a time; wider is plain JAX
+BLOCK = 1024  # most output rows per program
+TILE = 4096  # most gathered elements (rows × columns) per program
+MAX_COLS = 128  # most state columns per program; wider states span several
 
 
-def _kernel(starts_ref, p_ref, out_ref, *, n, m, d, blk, n_iter):
+def tile_shape(m: int, d: int) -> tuple[int, int]:
+    """(rows, columns) of one program's tile for m output rows of width d:
+    columns the next power of two of d (at most ``MAX_COLS``), rows filling
+    ``TILE`` elements (at most ``BLOCK``, at least 16)."""
+    cols = min(pl.next_power_of_2(d), MAX_COLS)
+    rows = min(BLOCK, max(TILE // cols, 16), pl.next_power_of_2(m))
+    return rows, cols
+
+
+def _kernel(starts_ref, p_ref, out_ref, *, n, m, d, blk, cols, n_iter):
     slot = pl.program_id(0) * blk + jnp.arange(blk, dtype=jnp.int32)
-    live = slot < m
+    col = pl.program_id(1) * cols + jnp.arange(cols, dtype=jnp.int32)
     # Invariant: starts[lo] <= slot < starts[hi], with starts[0] = 0 and
     # hi = n a virtual +inf, so lo ends as max{j : starts[j] <= slot}.
     lo = jnp.zeros((blk,), jnp.int32)
@@ -40,9 +51,11 @@ def _kernel(starts_ref, p_ref, out_ref, *, n, m, d, blk, n_iter):
         return jnp.where(right, mid, lo), jnp.where(right, hi, mid)
 
     lo, _ = lax.fori_loop(0, n_iter, body, (lo, hi))
-    for k in range(d):
-        v = plgpu.load(p_ref.at[lo * d + k], mask=live, other=0.0)
-        plgpu.store(out_ref.at[slot * d + k], v, mask=live)
+    live = (slot < m)[:, None] & (col < d)[None, :]
+    # Row and column indices, not a flat int32 offset: Pallas forms the
+    # element offsets itself, in 64 bits once an array passes 4 GiB.
+    v = plgpu.load(p_ref.at[lo[:, None], col[None, :]], mask=live, other=0.0)
+    plgpu.store(out_ref.at[slot[:, None], col[None, :]], v, mask=live)
 
 
 def resample_values_triton(
@@ -51,21 +64,19 @@ def resample_values_triton(
     """(m, d) values ``particles[max{j : starts_j ≤ i}]`` for i < m.
 
     ``starts`` (N,) int32 sorted with ``starts[0] = 0``; ``particles``
-    (N, d) with d ≤ ``MAX_DIM``. ``interpret=True`` runs the kernel in the
-    Pallas interpreter (tests only).
+    (N, d), any d. ``interpret=True`` runs the kernel in the Pallas
+    interpreter (tests only).
     """
     n, d = particles.shape
-    if d > MAX_DIM:
-        raise ValueError(f"resample_values_triton takes d <= {MAX_DIM}")
     n_iter = max(int(np.ceil(np.log2(n + 1))), 1)
-    blk = min(BLOCK, pl.next_power_of_2(m))
-    out = pl.pallas_call(
-        functools.partial(_kernel, n=n, m=m, d=d, blk=blk, n_iter=n_iter),
-        grid=(pl.cdiv(m, blk),),
-        out_shape=jax.ShapeDtypeStruct((m * d,), particles.dtype),
+    blk, cols = tile_shape(m, d)
+    return pl.pallas_call(
+        functools.partial(_kernel, n=n, m=m, d=d, blk=blk, cols=cols,
+                          n_iter=n_iter),
+        grid=(pl.cdiv(m, blk), pl.cdiv(d, cols)),
+        out_shape=jax.ShapeDtypeStruct((m, d), particles.dtype),
         backend="triton",
         compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=1),
         interpret=interpret,
         name="resample_triton",
-    )(starts.astype(jnp.int32), particles.reshape(n * d))
-    return out.reshape(m, d)
+    )(starts.astype(jnp.int32), particles)

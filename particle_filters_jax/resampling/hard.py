@@ -24,10 +24,7 @@ from jax import lax
 
 from particle_filters_jax.core.block_cumsum import blocked_cumsum
 from particle_filters_jax.core.weights import log_normalize
-from particle_filters_jax.ops.resample_triton import (
-    MAX_DIM,
-    resample_values_triton,
-)
+from particle_filters_jax.ops.resample_triton import resample_values_triton
 
 
 def _weights_from(w: Optional[jax.Array], logw: Optional[jax.Array]) -> jax.Array:
@@ -150,15 +147,12 @@ def _ancestors_from_starts(starts: jax.Array, m: int) -> jax.Array:
 
 @functools.partial(jax.custom_vjp, nondiff_argnums=(2,))
 def _select(starts, particles, m):
-    if particles.ndim == 2 and particles.shape[1] <= MAX_DIM:
-        return lax.platform_dependent(
-            starts, particles,
-            cuda=lambda s, p: resample_values_triton(s, p, m),
-            default=lambda s, p: jnp.take(
-                p, _ancestors_from_starts(s, m), axis=0
-            ),
-        )
-    return jnp.take(particles, _ancestors_from_starts(starts, m), axis=0)
+    out = lax.platform_dependent(
+        starts, particles.reshape(particles.shape[0], -1),
+        cuda=lambda s, p: resample_values_triton(s, p, m),
+        default=lambda s, p: jnp.take(p, _ancestors_from_starts(s, m), axis=0),
+    )
+    return out.reshape((m,) + particles.shape[1:])
 
 
 def _select_fwd(starts, particles, m):
@@ -181,12 +175,13 @@ def resample_values_from_starts(
     """``m`` (default N) resampled particle values from sorted child-run
     starts: ``out[i] = particles[max{j : starts_j ≤ i}]``.
 
-    Pure selection — the output holds the input values bit for bit, on
-    every backend. On CUDA, (N, d ≤ 16) particles go through the Triton
-    kernel of ``ops/resample_triton.py`` (per-slot binary search + gather);
-    elsewhere, and for wider states, the ancestors come from an integer
-    scatter + prefix sum and one ``jnp.take``. The gradient with respect to
-    ``particles`` scatters the cotangent back onto the ancestors.
+    Pure selection — the output holds the input values bit for bit, and
+    for the same starts it is the same on every backend. On CUDA the
+    particles, of any shape (N, ...), go through the Triton kernel of
+    ``ops/resample_triton.py`` (per-row binary search + row gather);
+    elsewhere the ancestors come from an integer scatter + prefix sum and
+    one ``jnp.take``. The gradient with respect to ``particles`` scatters
+    the cotangent back onto the ancestors.
     """
     m = particles.shape[0] if m is None else m
     return _select(starts, particles, m)

@@ -1,39 +1,27 @@
-"""particle_filters_tpu — a TPU-native sequential Monte Carlo engine in JAX.
+"""The package's former name, kept as an alias of ``particle_filters_jax``.
 
-A ground-up, TPU-first rebuild of the capabilities of the
-``liyiyang-amber/Particle_filters`` filtering zoo:
-
-- ``simulators/``: six state-space-model generators (LGSSM, 1-D stochastic
-  volatility, Lorenz-96, linear-Gaussian & skew-t spatial sensor networks,
-  multi-target acoustic tracking) as pure ``lax.scan`` step functions.
-- ``models/``: the filter ladder — KF / EKF / UKF, SIR particle filter,
-  EDH / LEDH deterministic particle flows, kernel particle flow (KPF),
-  stochastic particle flow (SPF), and differentiable particle filters with
-  soft / optimal-transport / RNN resampling — as vmapped per-particle
-  propagate/weight kernels with log-domain weight arithmetic.
-- ``resampling/``: shared resampler interface (systematic, multinomial,
-  stratified, residual; differentiable soft/OT/RNN).
-- ``ops/``: Pallas TPU kernels for the irregular hot ops (systematic
-  resampling as prefix-sum + sorted merge-gather).
-- ``parallel/``: particle-axis sharding over a ``jax.sharding.Mesh`` with
-  psum-based log-normalizers / ESS, so ensembles of 1e6+ particles scale
-  across chips.
-- ``utils/``: diagnostics (ESS, NEES, RMSE, coverage, OMAT), npz/json IO
-  compatible with the reference's dataset layouts.
-
-Everything is functional: filter state lives in pytree dataclasses, time
-recursion is ``lax.scan``, per-particle math is ``vmap``, and randomness is
-explicit ``jax.random`` keys.
+Importing this package, or any module under it, gives the module of the
+same path under ``particle_filters_jax`` (the same objects, not copies), so
+code written against the old name keeps working. New code should import
+``particle_filters_jax``.
 """
 
-__version__ = "0.1.0"
+import importlib
+import pkgutil
+import sys
+import warnings
 
-from particle_filters_tpu.core import structs, weights, linalg  # noqa: F401
-from particle_filters_tpu import (  # noqa: F401
-    models,
-    ops,
-    parallel,
-    resampling,
-    simulators,
-    utils,
+import particle_filters_jax as _target
+
+ALIAS_OF = _target.__name__
+
+warnings.warn(
+    f"{__name__} is now {ALIAS_OF}; import {ALIAS_OF} instead.",
+    DeprecationWarning,
+    stacklevel=2,
 )
+for _info in pkgutil.walk_packages(_target.__path__, ALIAS_OF + "."):
+    sys.modules[__name__ + _info.name[len(ALIAS_OF):]] = (
+        importlib.import_module(_info.name)
+    )
+sys.modules[__name__] = _target

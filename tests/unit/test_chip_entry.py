@@ -295,7 +295,9 @@ class TestProvisionDevices:
 
 @pytest.mark.gpu
 class TestOnGpu:
-    def test_resample_selection_matches_cpu(self, gpu_device, key):
+    @pytest.mark.parametrize("shape", [(4,), (), (144,), (2, 3)],
+                             ids=["d4", "1d", "d144", "2x3"])
+    def test_resample_selection_matches_cpu(self, gpu_device, key, shape):
         from particle_filters_jax.resampling.hard import (
             _systematic_starts,
             resample_values_from_starts,
@@ -306,7 +308,8 @@ class TestOnGpu:
         with jax.default_device(cpu):
             w = jax.nn.softmax(3.0 * jax.random.normal(key, (n,)))
             starts = np.asarray(_systematic_starts(key, w, n))
-            p = np.asarray(jax.random.normal(jax.random.fold_in(key, 1), (n, 4)))
+            p = np.asarray(jax.random.normal(jax.random.fold_in(key, 1),
+                                             (n,) + shape))
         got = jax.jit(resample_values_from_starts)(
             *jax.device_put((starts, p), gpu_device)
         )

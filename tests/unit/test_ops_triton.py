@@ -21,8 +21,9 @@ from particle_filters_jax.ops.fused_sir_triton import (
     fused_sir_step_plain,
 )
 from particle_filters_jax.ops.resample_triton import (
-    MAX_DIM,
+    MAX_COLS,
     resample_values_triton,
+    tile_shape,
 )
 from particle_filters_jax.parallel import (
     make_mesh,
@@ -86,21 +87,40 @@ class TestResampleTriton:
             np.asarray(got), np.tile(np.asarray(p[77]), (n, 1))
         )
 
-    def test_wide_state_refused(self, key):
-        with pytest.raises(ValueError):
-            resample_values_triton(
-                jnp.zeros(8, jnp.int32), jnp.zeros((8, MAX_DIM + 1)), 8
-            )
+    @pytest.mark.parametrize("n,d", [(700, 3), (513, 16), (300, 64),
+                                     (257, 144)])
+    def test_wide_and_odd_widths(self, key, n, d):
+        """Widths that are not a power of two, fill a tile's columns, or
+        span several column blocks (d > MAX_COLS): one kernel selects every
+        column of the ancestor's row."""
+        k = jax.random.fold_in(key, n * 1000 + d)
+        starts = _starts(k, n, 2.0)
+        p = jax.random.normal(jax.random.fold_in(k, 2), (n, d))
+        got = resample_values_triton(starts, p, n, interpret=True)
+        want = jnp.take(p, _ancestors_from_starts(starts, n), axis=0)
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 
-    @pytest.mark.parametrize("d", [1, MAX_DIM + 3])
-    def test_dispatch_off_cuda_is_plain(self, key, d):
-        """Off CUDA the jitted entry point lowers the plain path, for narrow
-        and wide states alike."""
-        n = 600
+    @pytest.mark.parametrize(
+        "m,d,want",
+        [(1 << 20, 1, (1024, 1)), (1 << 20, 4, (1024, 4)),
+         (1 << 20, 8, (512, 8)), (1 << 20, 64, (64, 64)),
+         (1 << 20, 144, (32, MAX_COLS)), (300, 2, (512, 2)),
+         (5, 144, (8, MAX_COLS))],
+    )
+    def test_tile_shape(self, m, d, want):
+        assert tile_shape(m, d) == want
+
+    @pytest.mark.parametrize("shape", [(600,), (600, 19), (600, 2, 3)],
+                             ids=["1", "19", "2x3"])
+    def test_dispatch_off_cuda_is_plain(self, key, shape):
+        """Off CUDA the jitted entry point lowers the plain path, for 1-D,
+        narrow, wide and multi-axis particle states alike."""
+        n = shape[0]
         starts = _starts(key, n, 1.5)
-        p = jax.random.normal(jax.random.fold_in(key, 4), (n, d))
+        p = jax.random.normal(jax.random.fold_in(key, 4), shape)
         got = jax.jit(resample_values_from_starts)(starts, p)
         want = jnp.take(p, _ancestors_from_starts(starts, n), axis=0)
+        assert got.shape == shape
         np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 
     def test_gradient_rule(self, key):
@@ -272,7 +292,8 @@ class TestDispatchShapes:
         p = jax.eval_shape(lambda *a: fused_sir_step_plain(*a, **kw), *args)
         assert k == p
 
-    @pytest.mark.parametrize("n,m,d", [(1000, 1000, 1), (2000, 700, 4)])
+    @pytest.mark.parametrize("n,m,d", [(1000, 1000, 1), (2000, 700, 4),
+                                       (500, 500, 144)])
     def test_resample_branches_agree(self, n, m, d):
         s = jax.ShapeDtypeStruct((n,), jnp.int32)
         p = jax.ShapeDtypeStruct((n, d), jnp.float32)
